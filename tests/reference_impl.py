@@ -2,27 +2,35 @@
 
 Implements the reference kernel semantics (reference: src/physics_kernels.jl)
 directly on a dense (X, Y, Z) grid in float64 numpy, independent of the
-block-sparse production path.  Slow and simple on purpose.
+production paths.  Slow and simple on purpose.  `naive_iface_plane` is the
+matching oracle of the refinement-interface ghost planes (reference:
+src/physics_interpolation.jl:16-138).
 """
 
 import numpy as np
 
-from open_ludwig_tpu import lattice as lat
+from open_ludwig import lattice as lat
+
+# face type codes, as in open_ludwig.core.patch
+BC_INLET, BC_OUTLET, BC_MIRROR_Y, BC_MIRROR_Z, BC_INTERFACE = range(5)
+DOMAIN_FACE_BC = (BC_INLET, BC_OUTLET, BC_MIRROR_Y, BC_MIRROR_Y,
+                  BC_MIRROR_Z, BC_MIRROR_Z)
 
 KAPPA = 0.41
 
 
 def hash_noise(gy, gz, t_seed, salt=1234):
-    combined = (
-        np.int32(gy) * np.int32(374761393)
-        + np.int32(gz) * np.int32(668265263)
-        + np.int32(t_seed) * np.int32(1274126177)
-        + np.int32(salt)
-    )
-    h = combined.astype(np.uint32) if hasattr(combined, "astype") else np.uint32(combined)
-    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
-    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
-    h = h ^ (h >> np.uint32(16))
+    with np.errstate(over="ignore"):  # the hash wraps around on purpose
+        combined = (
+            np.int32(gy) * np.int32(374761393)
+            + np.int32(gz) * np.int32(668265263)
+            + np.int32(t_seed) * np.int32(1274126177)
+            + np.int32(salt)
+        )
+        h = np.uint32(combined)
+        h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+        h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+        h = h ^ (h >> np.uint32(16))
     return float(h & np.uint32(0xFFFF)) / 32768.0 - 1.0
 
 
@@ -46,10 +54,23 @@ def naive_step(
     inlet_turb,
     wall_model,
     sponge_blend,
+    face_bc=DOMAIN_FACE_BC,
+    iface=None,
+    lo=(0, 0, 0),
 ):
-    """f: (27, X, Y, Z) float64. Returns (f_out, rho_out, vel_out)."""
+    """f: (27, X, Y, Z) float64. Returns (f_out, rho_out, vel_out).
+
+    `face_bc` gives each face's type (x-min, x-max, y-min, y-max, z-min,
+    z-max); a source across an x face takes that face's value before a y
+    face, before a z face.  `iface` maps each interface face to its ghost
+    values (27, A, B) at the destination cell's transverse coordinates
+    (naive_iface_plane's layout).  `lo` is the box's global cell offset,
+    which seeds the inlet noise."""
     Q, X, Y, Z = f.shape
     f_str = np.zeros_like(f)
+    gx, gy, gz = np.meshgrid(
+        np.arange(X), np.arange(Y), np.arange(Z), indexing="ij"
+    )
     # pull streaming with in-place boundary handling, per cell (slow loops
     # acceptable at test sizes)
     for k in range(27):
@@ -57,20 +78,30 @@ def naive_step(
         rolled = np.roll(f[k], (cx, cy, cz), axis=(0, 1, 2))
         f_str[k] = rolled
         # fix cells whose source was outside the domain
-        gx, gy, gz = np.meshgrid(
-            np.arange(X), np.arange(Y), np.arange(Z), indexing="ij"
-        )
         sx, sy, sz = gx - cx, gy - cy, gz - cz
-        inlet = sx < 0
-        outlet = ~inlet & (sx >= X)
-        ymir = ~inlet & ~outlet & ((sy < 0) | (sy >= Y))
-        zmir = ~inlet & ~outlet & ~ymir & ((sz < 0) | (sz >= Z))
+        crossed = [sx < 0, sx >= X]
+        crossed += [~(crossed[0] | crossed[1]) & (sy < 0),
+                    ~(crossed[0] | crossed[1]) & (sy >= Y)]
+        done = crossed[0] | crossed[1] | crossed[2] | crossed[3]
+        crossed += [~done & (sz < 0), ~done & (sz >= Z)]
+        by_type = {t: np.zeros((X, Y, Z), bool) for t in range(5)}
+        for face, m in enumerate(crossed):
+            if face_bc[face] == BC_INTERFACE:
+                ax = face // 2
+                t_idx = [c for a, c in enumerate((gx, gy, gz)) if a != ax]
+                plane = iface[face][k]
+                f_str[k][m] = plane[t_idx[0][m], t_idx[1][m]]
+            else:
+                by_type[face_bc[face]] |= m
+        inlet, outlet = by_type[BC_INLET], by_type[BC_OUTLET]
+        ymir, zmir = by_type[BC_MIRROR_Y], by_type[BC_MIRROR_Z]
         if inlet.any():
             iy = gy[inlet]
             iz = gz[inlet]
             if inlet_turb > 0:
                 noise = (
-                    np.array([hash_noise(a + 1, b + 1, t_seed) for a, b in zip(iy, iz)])
+                    np.array([hash_noise(a + 1 + lo[1], b + 1 + lo[2], t_seed)
+                              for a, b in zip(iy, iz)])
                     * inlet_turb
                     * u_inlet
                 )
@@ -137,9 +168,6 @@ def naive_step(
         arr = vel_prev[comp]
         out = np.roll(arr, (-dx, -dy, -dz), axis=(0, 1, 2))
         # fallback to self where neighbor is outside
-        gx, gy, gz = np.meshgrid(
-            np.arange(X), np.arange(Y), np.arange(Z), indexing="ij"
-        )
         bad = (
             (gx + dx < 0) | (gx + dx >= X)
             | (gy + dy < 0) | (gy + dy >= Y)
@@ -226,3 +254,60 @@ def naive_step(
         [np.where(obs, 0.0, ux_s), np.where(obs, 0.0, uy_s), np.where(obs, 0.0, uz_s)]
     )
     return f_out, rho_out, vel_out
+
+
+def _upsample_index(g, parent_lo, cap):
+    """Parent cells (lo, hi) and upper weight of fine global coordinates g
+    under the reference's parity-biased corner rule, clamped to the parent
+    array (edge replication)."""
+    j = g // 2 - 1 - parent_lo
+    w_hi = 0.25 + 0.5 * (g % 2)
+    return np.clip(j, 0, cap - 1), np.clip(j + 1, 0, cap - 1), w_hi
+
+
+def naive_iface_plane(face, child_lo, child_interior, child_padded, parent_lo,
+                      parent_states, weights, scale):
+    """Ghost values (27, A, B) that a child level's face cells pull across
+    interface `face`, in float64: the parent's f, rho and u trilinearly
+    upsampled (normal lerp at the face, parity-biased transverse rule),
+    blended in time as sum_i weights[i] * parent_states[i], then split into
+    equilibrium + scale * non-equilibrium.  Entry [k, a, b] is what
+    direction k brings into the face cell at transverse coordinates (a, b);
+    parent_states hold float64 {"f" (27, ...), "rho", "vel" (3, ...)}."""
+    ax = face // 2
+    t_axes = [a for a in range(3) if a != ax]
+    g_face = (child_lo[ax] - 1 if face % 2 == 0
+              else child_lo[ax] + child_interior[ax])
+    cap = parent_states[0]["rho"].shape
+    n_lo, n_hi, n_w = _upsample_index(np.array(g_face), parent_lo[ax],
+                                      cap[ax])
+    A, B = child_padded[t_axes[0]], child_padded[t_axes[1]]
+    out = np.zeros((27, A, B))
+    for k in range(27):
+        c = (lat.C_X[k], lat.C_Y[k], lat.C_Z[k])
+        ga = child_lo[t_axes[0]] + np.arange(A) - c[t_axes[0]]
+        gb = child_lo[t_axes[1]] + np.arange(B) - c[t_axes[1]]
+        a0, a1, wa = _upsample_index(ga, parent_lo[t_axes[0]], cap[t_axes[0]])
+        b0, b1, wb = _upsample_index(gb, parent_lo[t_axes[1]], cap[t_axes[1]])
+
+        def interp(arr):
+            """(..., parent box) -> (..., A, B) trilinear samples."""
+            v = 0.0
+            for ni, nw in ((n_lo, 1.0 - n_w), (n_hi, n_w)):
+                sl = np.take(arr, int(ni), axis=arr.ndim - 3 + ax)
+                for ai, aw in ((a0, 1.0 - wa), (a1, wa)):
+                    sa = np.take(sl, ai, axis=sl.ndim - 2)
+                    for bi, bw in ((b0, 1.0 - wb), (b1, wb)):
+                        sb = np.take(sa, bi, axis=sa.ndim - 1)
+                        v = v + nw * aw[:, None] * bw[None, :] * sb
+            return v
+
+        f_k = sum(w * interp(st["f"][k]) for w, st in zip(weights, parent_states))
+        rho = sum(w * interp(st["rho"]) for w, st in zip(weights, parent_states))
+        u = [sum(w * interp(st["vel"][d]) for w, st in zip(weights, parent_states))
+             for d in range(3)]
+        cu = c[0] * u[0] + c[1] * u[1] + c[2] * u[2]
+        usq = u[0] ** 2 + u[1] ** 2 + u[2] ** 2
+        feq = rho * lat.W64[k] * (1 + 3 * cu + 4.5 * cu * cu - 1.5 * usq)
+        out[k] = feq + (f_k - feq) * scale
+    return out

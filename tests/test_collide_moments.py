@@ -1,17 +1,19 @@
-"""collide_moments (MXU moment-space path) == collide_unrolled (scalar path).
+"""The three collision formulations agree: collide (the XLA step's stacked
+(27, N) form), collide_unrolled_v2 (the factorized moment form, in f and in
+g = f - w space) and collide_unrolled (the per-direction scalar form).
 
-The moment-space formulation relies on exact lattice identities (discrete 2nd
-moment of the 2nd-order equilibrium = rho(uu^T + cs^2 I); linearity of the
-sponge blend and Guo forcing); this pins those identities against the
-per-direction oracle on random states across all physics-flag combinations.
+The moment form relies on exact lattice identities (discrete 2nd moment of
+the 2nd-order equilibrium = rho(uu^T + cs^2 I); linearity of the sponge blend
+and Guo forcing); this pins those identities against the per-direction form
+on random states across all physics-flag combinations.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.ops import collide_math as cm
+from open_ludwig import lattice as lat
+from open_ludwig.ops import collide_math as cm
 
 
 @pytest.mark.parametrize("wall_model", [False, True])
@@ -36,39 +38,24 @@ def test_collide_moments_matches_unrolled(wall_model, sponge_blend):
     u = jnp.float32(0.04)
     fl = [jnp.asarray(f[k]) for k in range(27)]
     a_f, a_r, a_v = cm.collide_unrolled(fl, nbrs, obs, sp, wd, u, **kw)
-    for other in (cm.collide_moments, cm.collide_unrolled_v2):
-        arg = jnp.asarray(f) if other is cm.collide_moments else fl
-        b_f, b_r, b_v = other(arg, nbrs, obs, sp, wd, u, **kw)
+    w = [float(x) for x in lat.W]
+    n = int(np.prod(S))
+    stacked = cm.collide(
+        jnp.asarray(f).reshape(27, n), tuple(v.reshape(3, n) for v in nbrs),
+        obs.reshape(n), sp.reshape(n), wd.reshape(n), u, **kw,
+    )
+    results = {
+        "collide": (stacked[0].reshape((27,) + S), stacked[1].reshape(S),
+                    stacked[2].reshape((3,) + S)),
+        "v2": cm.collide_unrolled_v2(fl, nbrs, obs, sp, wd, u, **kw),
+    }
+    g_f, g_r, g_v = cm.collide_unrolled_v2(
+        [fl[k] - w[k] for k in range(27)], nbrs, obs, sp, wd, u,
+        g_shifted=True, **kw,
+    )
+    results["v2 g-space"] = ([g_f[k] + w[k] for k in range(27)], g_r, g_v)
+    for name, (b_f, b_r, b_v) in results.items():
         df = max(float(jnp.max(jnp.abs(a_f[k] - b_f[k]))) for k in range(27))
-        assert df < 2e-6, (other.__name__, df)
-        assert float(jnp.max(jnp.abs(a_r - b_r))) < 2e-6
-        assert float(jnp.max(jnp.abs(a_v - b_v))) < 2e-6
-
-
-def test_moment_matrices_identities():
-    """MOM_MAT rows recover (1, c, cc); BACK_MAT reproduces the equilibrium
-    for random (rho, u) through the 16-field basis."""
-    M = lat.MOM_MAT
-    assert np.allclose(M[0], np.ones(27))
-    assert np.allclose(M[1:4], lat.C)
-    rng = np.random.default_rng(5)
-    rho = rng.uniform(0.9, 1.1, 10)
-    u = rng.uniform(-0.1, 0.1, (3, 10))
-    feq = lat.equilibrium_np(rho, u[0], u[1], u[2]).T  # (27, 10)
-    usq = np.sum(u * u, axis=0)
-    y = np.stack([
-        rho - 1.5 * rho * usq,
-        rho * u[0], rho * u[1], rho * u[2],
-        rho * u[0] * u[0], rho * u[1] * u[1], rho * u[2] * u[2],
-        rho * u[0] * u[1], rho * u[1] * u[2], rho * u[2] * u[0],
-        *([np.zeros(10)] * 6),
-    ])
-    assert np.allclose(lat.BACK_MAT @ y, feq, atol=1e-6)
-    # discrete 2nd moment of the equilibrium = rho (u u^T + cs^2 I)
-    S6 = lat.PI_MAT @ feq
-    expect = np.stack([
-        rho * (u[0] * u[0] + 1 / 3), rho * (u[1] * u[1] + 1 / 3),
-        rho * (u[2] * u[2] + 1 / 3),
-        rho * u[0] * u[1], rho * u[1] * u[2], rho * u[2] * u[0],
-    ])
-    assert np.allclose(S6, expect, atol=1e-6)
+        assert df < 2e-6, (name, df)
+        assert float(jnp.max(jnp.abs(a_r - b_r))) < 2e-6, name
+        assert float(jnp.max(jnp.abs(a_v - b_v))) < 2e-6, name

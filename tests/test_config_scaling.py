@@ -6,8 +6,8 @@ import textwrap
 import numpy as np
 import pytest
 
-from open_ludwig_tpu.config import CaseConfig, load_case_config, parse_config
-from open_ludwig_tpu.scaling import (
+from open_ludwig.config import CaseConfig, load_case_config, parse_config
+from open_ludwig.scaling import (
     compute_domain_params,
     compute_max_levels_for_domain,
     compute_tau_fine,
@@ -143,8 +143,8 @@ def test_unit_roundtrip(sphere_cfg):
 
 
 def test_auto_levels_and_caps():
-    from open_ludwig_tpu.config import CaseConfig
-    from open_ludwig_tpu.scaling import compute_domain_params
+    from open_ludwig.config import CaseConfig
+    from open_ludwig.scaling import compute_domain_params
 
     base = dict(
         reference_length_for_meshing=1.0, surface_resolution=32,
@@ -168,8 +168,8 @@ def test_auto_levels_and_caps():
 
 
 def test_tau_floor_applied():
-    from open_ludwig_tpu.config import CaseConfig
-    from open_ludwig_tpu.scaling import compute_domain_params
+    from open_ludwig.config import CaseConfig
+    from open_ludwig.scaling import compute_domain_params
 
     cfg = CaseConfig(
         num_levels=1, reference_length_for_meshing=1.0, surface_resolution=10,

@@ -6,11 +6,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.core.patch import (
+from open_ludwig import lattice as lat
+from open_ludwig.core.patch import (
     BC_INLET, BC_INTERFACE, BC_MIRROR_Y, BC_MIRROR_Z, BC_OUTLET, PatchLevel,
 )
-from open_ludwig_tpu.ops.dense_step import dense_stream_collide, interface_plane
+from open_ludwig.ops.dense_step import (
+    build_iface_mm_plan,
+    dense_stream_collide,
+    extract_endpoint_slabs,
+    interface_planes_pair_mm,
+)
 
 from reference_impl import naive_step
 
@@ -18,7 +23,7 @@ from reference_impl import naive_step
 def _patch(interior, tau=0.52, lo=(0, 0, 0), face_bc=None, obstacle=None,
            sponge=None, wall=None, dx=1.0, level_id=1):
     X, Y, Z = interior
-    XS, YS, ZS = X, -(-Y // 8) * 8, -(-Z // 128) * 128
+    XS, YS, ZS = X, Y, Z
     def pad(a, fill, dtype):
         out = np.full((XS, YS, ZS), fill, dtype)
         if a is not None:
@@ -117,6 +122,17 @@ def test_dense_equilibrium_fixed_point():
     assert np.allclose(_interior(r1, p), 1.0, atol=1e-6)
 
 
+def _ghost_planes(child, parent, old, new, use_temporal):
+    """The scheduler's ghost planes, x faces (n_w, 27, A, B) and y/z faces
+    brought to the same (n_w, 27, A, B) layout."""
+    plan = build_iface_mm_plan(child, parent)
+    planes = interface_planes_pair_mm(
+        plan, child, parent, extract_endpoint_slabs(plan, old),
+        extract_endpoint_slabs(plan, new), use_temporal)
+    return {fc: np.asarray(pl if fc < 2 else jnp.swapaxes(pl, 1, 2))
+            for fc, pl in planes.items()}
+
+
 def test_interface_plane_uniform_parent():
     """A uniform-equilibrium parent must produce exactly W_k ghost planes on
     every interface face (trilinear interp of constants + zero f_neq)."""
@@ -129,15 +145,12 @@ def test_interface_plane_uniform_parent():
         "rho": jnp.ones(parent.padded, jnp.float32),
         "vel": jnp.zeros((3,) + parent.padded, jnp.float32),
     }
-    for face in range(6):
-        pl = interface_plane(face, child, parent, pstate, pstate, 0.5, True)
-        pl = np.asarray(pl)
-        # interior transverse region must be exactly W_k
-        want = np.asarray(lat.W)[:, None, None]
-        # padded transverse tails may hold junk; check the guaranteed region
-        A = child.interior[[a for a in range(3) if a != face // 2][0]]
-        B = child.interior[[a for a in range(3) if a != face // 2][1]]
-        assert np.allclose(pl[:, : A + 2, : B + 2], want, atol=1e-6), face
+    planes = _ghost_planes(child, parent, pstate, pstate, True)
+    assert sorted(planes) == list(range(6))
+    want = np.asarray(lat.W)[None, :, None, None]
+    for face, pl in planes.items():
+        assert pl.shape[:2] == (2, 27), (face, pl.shape)
+        assert np.allclose(pl, want, atol=1e-6), face
 
 
 def test_interface_plane_linear_field():
@@ -159,31 +172,27 @@ def test_interface_plane_linear_field():
     }
     # x-min face: fine ghost layer at fine g = 11 -> parent corners (4, 5),
     # weight 0.75 (odd)
-    pl = np.asarray(interface_plane(0, child, parent, pstate, pstate, 1.0, False))
+    pl = _ghost_planes(child, parent, pstate, pstate, False)[0]
     rho_expect = (1.0 + 0.01 * 4) * 0.25 + (1.0 + 0.01 * 5) * 0.75
     # rest-direction k=13: value = W13 * rho (f = W*rho is equilibrium at u=0)
-    assert pl[13, 1, 1] == pytest.approx(lat.W64[13] * rho_expect, rel=1e-5)
+    assert pl[0, 13, 1, 1] == pytest.approx(lat.W64[13] * rho_expect, rel=1e-5)
 
 
 @pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
 @pytest.mark.parametrize("use_temporal", [True, False])
-@pytest.mark.parametrize("g_shifted", [True, False])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
 @pytest.mark.parametrize("parent_lo", [(0, 0, 0), (6, 4, 2)])
-def test_interface_planes_pair_mm_parity(rng, use_temporal, g_shifted,
+def test_interface_planes_pair_mm_parity(rng, use_temporal, precision,
                                          parent_lo):
     """The einsum-operator interface pipeline (interface_planes_pair_mm) must
-    match the slice/upsample/shift pipeline bit-closely on random states.
+    match the float64 oracle of the ghost planes on random states.
 
     parent_lo != 0 covers deep levels (level 3+), whose parent array is
-    itself offset in global coordinates — a round-3 regression (global vs
+    itself offset in global coordinates — a regression once (global vs
     parent-local slab coordinates) that doubled the validated sphere Cd."""
-    from open_ludwig_tpu.ops.dense_step import (
-        build_iface_mm_plan,
-        interface_endpoints,
-        interface_endpoints_pair,
-        interface_planes_pair,
-        interface_planes_pair_mm,
-    )
+    from open_ludwig.ops import storage
+
+    from reference_impl import naive_iface_plane
 
     parent = _patch((20, 16, 16), tau=0.58, level_id=1, lo=parent_lo)
     child = _patch((14, 12, 12), tau=0.54,
@@ -192,11 +201,10 @@ def test_interface_planes_pair_mm_parity(rng, use_temporal, g_shifted,
                    face_bc=[BC_INTERFACE] * 6, level_id=2, dx=0.5)
 
     def rand_state():
+        f = lat.W[:, None, None, None] * (
+            1.0 + 0.05 * rng.standard_normal((27,) + parent.padded))
         return {
-            "f": jnp.asarray(
-                lat.W[:, None, None, None]
-                * (1.0 + 0.05 * rng.standard_normal((27,) + parent.padded))
-            ).astype(jnp.float32),
+            "f": storage.encode_f(jnp.asarray(f, jnp.float32), precision),
             "rho": jnp.asarray(
                 1.0 + 0.02 * rng.standard_normal(parent.padded)
             ).astype(jnp.float32),
@@ -205,80 +213,118 @@ def test_interface_planes_pair_mm_parity(rng, use_temporal, g_shifted,
             ).astype(jnp.float32),
         }
 
-    st_old, st_new = rand_state(), rand_state()
-    if use_temporal:
-        ep_old, ep_new = interface_endpoints_pair(child, parent, st_old, st_new)
-    else:
-        ep_old, ep_new = None, interface_endpoints(child, parent, st_new)
-    want = interface_planes_pair(
-        ep_new, ep_old, child, parent, use_temporal, g_shifted=g_shifted
-    )
+    def f64(st):
+        return {"f": np.asarray(storage.decode_f(st["f"]), np.float64),
+                "rho": np.asarray(st["rho"], np.float64),
+                "vel": np.asarray(st["vel"], np.float64)}
 
-    plan = build_iface_mm_plan(child, parent)
-    got = interface_planes_pair_mm(
-        plan, child, parent, st_old if use_temporal else None, st_new,
-        use_temporal, g_shifted=g_shifted,
-    )
-    assert set(got) == set(want)
-    for face in want:
-        a, b = np.asarray(want[face]), np.asarray(got[face])
-        assert a.shape == b.shape, (face, a.shape, b.shape)
-        assert np.allclose(a, b, atol=2e-6), (
-            face, np.abs(a - b).max()
-        )
+    st_old, st_new = rand_state(), rand_state()
+    got = _ghost_planes(child, parent, st_old, st_new, use_temporal)
+    scale = (child.tau - 0.5) / (parent.tau - 0.5)
+    weights = ([(1.0, 0.0), (0.5, 0.5)] if use_temporal else [(0.0, 1.0)])
+    # bf16 einsum operands round the normal-lerp weights (<0.4%)
+    tol = 2e-6 if precision == "float32" else 2e-3
+    for face, pl in got.items():
+        for j, w in enumerate(weights):
+            want = naive_iface_plane(face, child.lo, child.interior,
+                                     child.padded, parent.lo,
+                                     [f64(st_old), f64(st_new)], w, scale)
+            err = np.abs(pl[j] - want).max()
+            assert err <= tol, (face, j, err)
 
 
 def test_hbm_accounting_shared_formula():
     """estimate_capacity and hbm_report_patches must share one
     bytes-per-cell formula (they disagreed by ~15% once: the report counted
-    the doubled static fields, the planner did not count the transient f
-    copy).  The planner's capacity, re-expanded through the report's
-    per-cell split, must land within rounding of the budget it planned."""
-    from open_ludwig_tpu.solver_dense import estimate_capacity, hbm_bytes_per_cell
+    the static fields, the planner did not count the step's transients).
+    The planner's capacity, re-expanded through the per-cell formula, must
+    land within rounding of the budget it planned."""
+    from open_ludwig.solver_dense import estimate_capacity, hbm_bytes_per_cell
 
     for precision in ("float32", "bfloat16"):
         per = hbm_bytes_per_cell(precision, transient=True)
         resident = hbm_bytes_per_cell(precision, transient=False)
         f_bytes = 2 if precision == "bfloat16" else 4
-        # production engine: f updates in place, the per-step transient is
-        # the rho/vel scan-carry ping-pong; the XLA fallback adds an f copy
-        assert per - resident == 16
-        per_xla = hbm_bytes_per_cell(precision, transient=True, engine="xla")
-        assert per_xla - per == 27 * f_bytes
+        # resident: f + rho + vel + obstacle/sponge/wall
+        assert resident == 27 * f_bytes + 16 + 9
+        # the GPU step's transients: a second f, rho and vel, plus the int8
+        # obstacle mask the kernel reads
+        assert per - resident == 27 * f_bytes + 16 + 1
         cap = estimate_capacity(hbm_gb=16.0, precision=precision)
         assert abs(cap * per - 16.0e9) < per  # exact inverse of the formula
 
 
-def test_flat_coarse_on_downgrades_gracefully_on_cpu(tmp_path):
-    """advanced.engine.flat_coarse: on, on a backend where the Pallas flat
-    step cannot run (CPU here): the level must be REBUILT in 3-D layout
-    with a logged downgrade instead of raising in make_coarse_step_dense
-    (the flat layout has no XLA fallback)."""
-    import dataclasses
+@pytest.mark.parametrize("precision,tol", [("float32", 2e-5), ("bfloat16", 2e-3)])
+def test_two_level_coarse_step_matches_oracle(rng, precision, tol):
+    """One coarse step of the multi-level scheduler (a parent step, then two
+    child sub-steps whose ghost planes are interpolated in space and time
+    from the parent) against the float64 oracle.  The interface einsums run
+    at the pinned precision (HIGHEST for float32 operands), so the float32
+    bound is the single-level one; bf16 g-storage rounds every stored f to
+    one bf16 ulp of g (~1e-4 of f), hence its looser bound."""
+    from open_ludwig.config import CaseConfig
+    from open_ludwig.ops import storage
+    from open_ludwig.solver_dense import build_patch_statics, make_coarse_step_dense
 
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.core.patch import build_patches
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.scaling import compute_domain_params
-    from open_ludwig_tpu.solver_dense import (
-        build_patch_statics,
-        init_patch_state,
-        make_batch_runner_dense,
-    )
+    from reference_impl import naive_iface_plane
 
-    d = str(tmp_path)
-    make_case_sphere(d, "1M", surface_resolution=8, num_levels=2, steps=4,
-                     ramp_steps=2, output_freq=100, diag_freq=100)
-    cfg = dataclasses.replace(load_case_config(d), flat_coarse="on")
-    tri = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
-    params = compute_domain_params(cfg, tri.min_bounds, tri.max_bounds)
-    levels = build_patches(cfg, tri, params)
-    assert not any(p.flat_yz for p in levels)  # downgraded, not honored
-    statics = build_patch_statics(cfg, levels)
-    states = [init_patch_state(p, cfg.precision) for p in levels]
-    run = make_batch_runner_dense(cfg, params, levels, statics)  # no raise
-    states = run(states, np.int32(1), 2)
-    import jax
+    wall_p = np.full((20, 16, 16), 100.0, np.float32)
+    wall_p[rng.random(wall_p.shape) < 0.05] = 2.0
+    parent = _patch((20, 16, 16), tau=0.56, wall=wall_p)
+    child = _patch((14, 12, 12), tau=0.52, lo=(10, 8, 8), level_id=2, dx=0.5,
+                   face_bc=[BC_INTERFACE] * 6)
+    cfg = CaseConfig(u_lattice=0.04, ramp_steps=1, c_wale=0.5,
+                     nu_sgs_background=5e-4, inlet_turbulence_intensity=0.05,
+                     wall_model_enabled=True, sponge_blend_distributions=True,
+                     temporal_interpolation=True, precision=precision)
+    patches = [parent, child]
 
-    jax.block_until_ready(states[0]["rho"])
+    def rand_state(p):
+        f = lat.W64[:, None, None, None] * (
+            1.0 + 0.03 * rng.standard_normal((27,) + p.padded))
+        return {
+            "f": storage.encode_f(jnp.asarray(f, jnp.float32), precision),
+            "rho": jnp.asarray(1.0 + 0.01 * rng.standard_normal(p.padded),
+                               jnp.float32),
+            "vel": jnp.asarray(0.02 * rng.standard_normal((3,) + p.padded),
+                               jnp.float32),
+        }
+
+    states = [rand_state(p) for p in patches]
+    t = 5
+    step = make_coarse_step_dense(cfg, None, patches,
+                                  build_patch_statics(cfg, patches))
+    got = step(states, jnp.int32(t))
+
+    def f64(st):
+        return {"f": np.asarray(storage.decode_f(st["f"]), np.float64),
+                "rho": np.asarray(st["rho"], np.float64),
+                "vel": np.asarray(st["vel"], np.float64)}
+
+    kw = dict(u_inlet=np.float64(np.float32(0.04)), c_wale=0.5, nu_sgs=5e-4,
+              inlet_turb=0.05, wall_model=True, sponge_blend=True)
+    old = f64(states[0])
+    f, r, v = naive_step(old["f"], old["vel"], parent.obstacle, parent.sponge,
+                         parent.wall_dist.astype(np.float64), t_seed=t,
+                         tau=parent.tau, **kw)
+    new = {"f": f, "rho": r, "vel": v}
+    want = [new]
+    scale = (child.tau - 0.5) / (parent.tau - 0.5)
+    ch = f64(states[1])
+    for j, wts in enumerate(((1.0, 0.0), (0.5, 0.5))):
+        iface = {fc: naive_iface_plane(fc, child.lo, child.interior,
+                                       child.padded, parent.lo, [old, new],
+                                       wts, scale)
+                 for fc in range(6)}
+        f, r, v = naive_step(ch["f"], ch["vel"], child.obstacle, child.sponge,
+                             child.wall_dist.astype(np.float64),
+                             t_seed=2 * t + j, tau=child.tau,
+                             face_bc=child.face_bc, iface=iface, lo=child.lo,
+                             **kw)
+        ch = {"f": f, "rho": r, "vel": v}
+    want.append(ch)
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        for key in ("f", "rho", "vel"):
+            a = np.asarray(storage.decode_f(g[key]) if key == "f" else g[key])
+            err = np.abs(a - w[key]).max()
+            assert err <= tol, (lvl, key, err)

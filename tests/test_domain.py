@@ -5,14 +5,14 @@ against an analytic sphere."""
 import numpy as np
 import pytest
 
-from open_ludwig_tpu.config import CaseConfig
-from open_ludwig_tpu.domain import topology as topo
-from open_ludwig_tpu.domain.bouzidi import compute_bouzidi
-from open_ludwig_tpu.domain.builder import build_domain, setup_case
-from open_ludwig_tpu.domain.fields import sponge_for_cells, wall_distance_dense
-from open_ludwig_tpu.domain.voxelize import flood_fill_dense, voxelize_dense
-from open_ludwig_tpu.geometry import make_cube, make_icosphere, save_binary_stl
-from open_ludwig_tpu.scaling import compute_domain_params
+from open_ludwig.config import CaseConfig
+from open_ludwig.domain import topology as topo
+from open_ludwig.domain.bouzidi import compute_bouzidi
+from open_ludwig.domain.builder import build_domain, setup_case
+from open_ludwig.domain.fields import sponge_for_cells, wall_distance_dense
+from open_ludwig.domain.voxelize import flood_fill_dense, voxelize_dense
+from open_ludwig.geometry import make_cube, make_icosphere, save_binary_stl
+from open_ludwig.scaling import compute_domain_params
 
 
 def test_dilate26():

@@ -8,12 +8,12 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 
-from open_ludwig_tpu.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
-from open_ludwig_tpu.config import OutputFields
-from open_ludwig_tpu.domain import topology as topo
-from open_ludwig_tpu.domain.builder import LevelGeometry, _dense_to_blocks
-from open_ludwig_tpu.io.vtk import export_flow_vtu, export_surface_vtu, write_vtu
-from open_ludwig_tpu.ops.forces import ForceContext, compute_aerodynamics
+from open_ludwig.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from open_ludwig.config import OutputFields
+from open_ludwig.domain import topology as topo
+from open_ludwig.domain.builder import LevelGeometry, _dense_to_blocks
+from open_ludwig.io.vtk import export_flow_vtu, export_surface_vtu, write_vtu
+from open_ludwig.ops.forces import ForceContext, compute_aerodynamics
 
 
 def _dense_geo(dims, obstacle_d, tau=0.55, dx=0.1):
@@ -202,7 +202,7 @@ def test_checkpoint_async_streaming_equivalence(tmp_path):
     sync saves of the same multi-level state load back identically, bf16
     and f32 alike, with the chunked path actually exercised (chunk size
     shrunk below one array)."""
-    from open_ludwig_tpu import checkpoint as ckpt
+    from open_ludwig import checkpoint as ckpt
 
     rng = np.random.default_rng(3)
     states = [
@@ -244,8 +244,8 @@ def test_checkpoint_async_streaming_equivalence(tmp_path):
 
 
 def test_flow_export_with_vorticity(tmp_path):
-    from open_ludwig_tpu.core.patch import PatchLevel
-    from open_ludwig_tpu.io.vtk import export_flow_vtu_patches
+    from open_ludwig.core.patch import PatchLevel
+    from open_ludwig.io.vtk import export_flow_vtu_patches
 
     p = PatchLevel(
         1, 0.1, 0.55, (0, 0, 0), (8, 8, 8), (8, 8, 128),
@@ -270,8 +270,8 @@ def test_vorticity_blocks_seam_free():
     """A linear shear u_x = a*y spanning a 2x2x1 block grid has constant
     |curl u| = a everywhere — the old intra-block-roll formulation fabricated
     O(u) vorticity sheets at every 8-cell block face."""
-    from open_ludwig_tpu.diagnostics import vorticity_blocks_host
-    from open_ludwig_tpu.domain.builder import _dense_to_blocks
+    from open_ludwig.diagnostics import vorticity_blocks_host
+    from open_ludwig.domain.builder import _dense_to_blocks
 
     dims = (2, 2, 1)
     X, Y, Z = 16, 16, 8
@@ -285,7 +285,7 @@ def test_vorticity_blocks_seam_free():
 
 
 def test_surface_loads_csv(tmp_path):
-    from open_ludwig_tpu.io.csv_out import export_surface_loads_csv
+    from open_ludwig.io.csv_out import export_surface_loads_csv
 
     path = str(tmp_path / "loads.csv")
     export_surface_loads_csv(
@@ -309,12 +309,12 @@ def test_pressure_extrapolation_improves_wall_sampling(tmp_path):
     the reference's single nearest-cell sample."""
     import jax.numpy as jnp
 
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.core.patch import build_patches
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.ops.forces import make_force_context_dense
-    from open_ludwig_tpu.scaling import compute_domain_params
+    from open_ludwig.cases import make_case_sphere
+    from open_ludwig.config import load_case_config
+    from open_ludwig.core.patch import build_patches
+    from open_ludwig.geometry import load_mesh
+    from open_ludwig.ops.forces import make_force_context_dense
+    from open_ludwig.scaling import compute_domain_params
 
     d = str(tmp_path)
     make_case_sphere(d, "1M", surface_resolution=16, num_levels=1, steps=1,
@@ -366,16 +366,16 @@ def test_momentum_exchange_matches_numpy_reference(tmp_path, rng):
     the link midpoint, nearest-triangle attribution."""
     import jax.numpy as jnp
 
-    from open_ludwig_tpu import lattice as lat
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.core.patch import build_patches
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.ops.forces import (
+    from open_ludwig import lattice as lat
+    from open_ludwig.cases import make_case_sphere
+    from open_ludwig.config import load_case_config
+    from open_ludwig.core.patch import build_patches
+    from open_ludwig.geometry import load_mesh
+    from open_ludwig.ops.forces import (
         compute_aerodynamics_mem,
         make_mem_context,
     )
-    from open_ludwig_tpu.scaling import compute_domain_params
+    from open_ludwig.scaling import compute_domain_params
 
     d = str(tmp_path)
     make_case_sphere(d, "1M", surface_resolution=14, num_levels=1, steps=1,

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from open_ludwig_tpu.geometry import (
+from open_ludwig.geometry import (
     load_mesh,
     make_cube,
     make_icosphere,

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from open_ludwig_tpu import lattice as lat
+from open_ludwig import lattice as lat
 
 
 def test_weights_sum_to_one():

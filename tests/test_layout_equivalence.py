@@ -7,15 +7,15 @@ import pytest
 
 import jax.numpy as jnp
 
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.core.state import build_all
-from open_ludwig_tpu.domain.builder import setup_case
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver import make_coarse_step
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig.cases import make_case_sphere
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.core.state import build_all
+from open_ludwig.domain.builder import setup_case
+from open_ludwig.geometry import load_mesh
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver import make_coarse_step
+from open_ludwig.solver_dense import (
     build_patch_statics,
     init_patch_state,
     make_coarse_step_dense,
@@ -51,7 +51,7 @@ def test_single_level_dense_vs_blocks(tmp_path):
     patches = build_patches(cfg, mesh, params)
     dstat = build_patch_statics(cfg, patches)
     dstate = [init_patch_state(p) for p in patches]
-    cs_d = make_coarse_step_dense(cfg, params, patches, dstat, use_pallas=False)
+    cs_d = make_coarse_step_dense(cfg, params, patches, dstat)
 
     # block path
     _, params_b, levels = setup_case(cfg)
@@ -79,13 +79,11 @@ def test_single_level_dense_vs_blocks(tmp_path):
 
 @pytest.mark.slow  # 374s: compiles the 2-level XLA step twice on CPU
 def test_z_pad_tile_invariance(tmp_path):
-    """The storage z-pad tile (core.patch.Z_PAD_TILE) is pure layout: a
-    2-level case stepped under tile 128 (round-2 layout) and tile 8 must
-    produce identical interior fields — pad cells are obstacle-filled and
-    never feed interior physics, and the interface einsum plans encode the
-    same operators for any slab padding."""
-    from open_ludwig_tpu.core import patch as patch_mod
-
+    """Storage padding is pure layout: a 2-level case stepped unpadded and
+    with every level's x-extent padded to a multiple of 8 (the x-slab
+    device-count padding) must produce identical interior fields — pad cells
+    are obstacle-filled and never feed interior physics, and the interface
+    einsum plans encode the same operators for any slab padding."""
     make_case_sphere(
         str(tmp_path), "1M", surface_resolution=8, num_levels=2, steps=4,
         ramp_steps=2, output_freq=100, diag_freq=100, wake_enabled=True,
@@ -96,22 +94,17 @@ def test_z_pad_tile_invariance(tmp_path):
     params = compute_domain_params(cfg, mesh.min_bounds, mesh.max_bounds)
 
     results = {}
-    tile0 = patch_mod.Z_PAD_TILE
-    try:
-        for tile in (128, 8):
-            patch_mod.Z_PAD_TILE = tile
-            patches = build_patches(cfg, mesh, params)
-            stat = build_patch_statics(cfg, patches)
-            state = [init_patch_state(p) for p in patches]
-            cs = make_coarse_step_dense(cfg, params, patches, stat,
-                                        use_pallas=False)
-            for t in range(1, 4):
-                state = cs(state, jnp.int32(t))
-            results[tile] = (patches, state)
-    finally:
-        patch_mod.Z_PAD_TILE = tile0
+    for tile in (1, 8):
+        patches = build_patches(cfg, mesh, params, x_multiple=tile)
+        stat = build_patch_statics(cfg, patches)
+        state = [init_patch_state(p) for p in patches]
+        cs = make_coarse_step_dense(cfg, params, patches, stat)
+        for t in range(1, 4):
+            state = cs(state, jnp.int32(t))
+        results[tile] = (patches, state)
+    assert any(p.padded != p.interior for p in results[8][0])
 
-    pa, sa = results[128]
+    pa, sa = results[1]
     pb, sb = results[8]
     for lvl in range(2):
         assert pa[lvl].interior == pb[lvl].interior

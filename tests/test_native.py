@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from open_ludwig_tpu import native
-from open_ludwig_tpu.domain.bouzidi import compute_bouzidi
-from open_ludwig_tpu.domain.voxelize import voxelize_dense
-from open_ludwig_tpu.geometry import make_cube, make_icosphere
+from open_ludwig import native
+from open_ludwig.domain.bouzidi import compute_bouzidi
+from open_ludwig.domain.voxelize import voxelize_dense
+from open_ludwig.geometry import make_cube, make_icosphere
 
 
 @pytest.fixture(scope="module")

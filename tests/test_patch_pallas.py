@@ -1,6 +1,5 @@
-"""Dense-patch builder invariants, Pallas kernel (interpret mode) vs the XLA
-dense path, dense-vs-sparse Bouzidi equivalence, and the sharded dense step
-on a virtual device mesh."""
+"""Dense-patch builder invariants, dense-vs-sparse Bouzidi equivalence, and
+the sharded dense step on a virtual device mesh."""
 
 import numpy as np
 import pytest
@@ -8,10 +7,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.config import CaseConfig
-from open_ludwig_tpu.core import patch as patch_mod
-from open_ludwig_tpu.core.patch import (
+from open_ludwig.config import CaseConfig
+from open_ludwig.core.patch import (
     BC_INLET,
     BC_INTERFACE,
     BC_MIRROR_Y,
@@ -20,26 +17,20 @@ from open_ludwig_tpu.core.patch import (
     PatchLevel,
     build_patches,
 )
-from open_ludwig_tpu.domain.bouzidi import BouzidiData
-from open_ludwig_tpu.geometry import load_mesh, make_icosphere, save_binary_stl
-from open_ludwig_tpu.ops.dense_step import (
+from open_ludwig.domain.bouzidi import BouzidiData
+from open_ludwig.geometry import load_mesh, make_icosphere, save_binary_stl
+from open_ludwig.ops.dense_step import (
     apply_bouzidi_dense,
     build_bouzidi_dense_plan,
     build_bouzidi_patch_plan,
-    dense_stream_collide,
 )
-from open_ludwig_tpu.ops.pallas_step import (
-    make_pallas_step,
-    prep_iface_pallas,
-    prepare_pallas_statics,
-)
-from open_ludwig_tpu.ops.stream_collide import apply_bouzidi
-from open_ludwig_tpu.scaling import compute_domain_params
+from open_ludwig.ops.stream_collide import apply_bouzidi
+from open_ludwig.scaling import compute_domain_params
 
 
 def _patch(interior, tau=0.52, lo=(0, 0, 0), face_bc=None, level_id=1):
     X, Y, Z = interior
-    XS, YS, ZS = X, -(-Y // 8) * 8, -(-Z // 128) * 128
+    XS, YS, ZS = X, Y, Z
     return PatchLevel(
         level_id, 0.1, tau, lo, interior, (XS, YS, ZS),
         tuple(face_bc or (BC_INLET, BC_OUTLET, BC_MIRROR_Y, BC_MIRROR_Y,
@@ -80,139 +71,11 @@ def test_patch_builder_invariants(tmp_path):
                 assert lo_need >= p.lo[ax]
             if c.face_bc[2 * ax + 1] == BC_INTERFACE:
                 assert hi_need <= p.lo[ax] + p.interior[ax]
-        # padded dims tile-aligned
-        assert c.padded[1] % 8 == 0 and c.padded[2] % patch_mod.Z_PAD_TILE == 0
+        # y and z are stored unpadded; x only to the device-count multiple
+        assert c.padded == c.interior
         # geometry is inside the fine patch
     fin = patches[-1]
     assert fin.obstacle[: fin.interior[0], : fin.interior[1], : fin.interior[2]].any()
-
-
-def test_pallas_matches_dense_interpret(rng):
-    X, Y, Z = 8, 8, 120
-    p = _patch((X, Y, Z), tau=0.53)
-    p.obstacle[3:5, 3:5, 50:54] = True
-    p.sponge[6:, :, :] = 0.3
-    p.wall_dist[2, 3, 49] = 1.0
-    f0 = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
-        (27,) + p.padded))).astype(np.float32)
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-    static_flat = {
-        "obstacle": jnp.asarray(p.obstacle.reshape(-1)),
-        "sponge": jnp.asarray(p.sponge.reshape(-1)),
-        "wall_dist": jnp.asarray(p.wall_dist.reshape(-1)),
-        "bouzidi": None,
-    }
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.02,
-              wall_model=True, sponge_blend=True)
-    fj, vj = jnp.asarray(f0), jnp.asarray(v0)
-    u, s = jnp.float32(0.04), jnp.int32(9)
-    f_ref, r_ref, v_ref = dense_stream_collide(fj, vj, u, s, static_flat, p, **kw)
-    pstep = make_pallas_step(p, interpret=True, **kw)
-    f_pl, r_pl, v_pl = pstep(fj, vj, u, s, prepare_pallas_statics(p))
-    X_, Y_, Z_ = p.interior
-    d = np.abs(np.asarray(f_pl)[:, :X_, :Y_, :Z_] - np.asarray(f_ref)[:, :X_, :Y_, :Z_])
-    assert d.max() < 1e-5, d.max()
-
-
-@pytest.mark.parametrize("store_bf16,alias_f", [
-    (False, False), (True, False), (False, True), (True, True),
-])
-def test_pallas_2d_matches_dense_interpret(rng, store_bf16, alias_f):
-    """The (x, y)-chunked kernel (make_pallas_step_2d) vs the XLA dense path
-    on a multi-strip (NY=3), multi-chunk (NCX=4) grid with all boundary
-    types, wall model, sponge and inlet noise on — the configuration that
-    exercises the 3-DMA halo-window assembly and the static sublane-slice
-    streaming on every code path.  alias_f additionally exercises the
-    in-place variant's parity-double-buffered x-lo save planes (the x-lo
-    halo HBM re-read is gone) across 4 columns x 3 strips."""
-    from open_ludwig_tpu.ops.pallas_step import make_pallas_step_2d
-    from open_ludwig_tpu.ops.storage import decode_f, encode_f
-
-    X, Y, Z = 8, 24, 120
-    p = _patch((X, Y, Z), tau=0.53)
-    p.obstacle[3:5, 9:12, 50:54] = True
-    p.sponge[6:, :, :] = 0.3
-    p.wall_dist[2, 10, 49] = 1.0
-    f0 = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
-        (27,) + p.padded))).astype(np.float32)
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-    static_flat = {
-        "obstacle": jnp.asarray(p.obstacle.reshape(-1)),
-        "sponge": jnp.asarray(p.sponge.reshape(-1)),
-        "wall_dist": jnp.asarray(p.wall_dist.reshape(-1)),
-        "bouzidi": None,
-    }
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.02,
-              wall_model=True, sponge_blend=True)
-    fj, vj = jnp.asarray(f0), jnp.asarray(v0)
-    u, s = jnp.float32(0.04), jnp.int32(9)
-    f_ref, r_ref, v_ref = dense_stream_collide(fj, vj, u, s, static_flat, p, **kw)
-    pstep = make_pallas_step_2d(p, interpret=True, store_bf16=store_bf16,
-                                chunk_dims=(2, 8), alias_f=alias_f, **kw)
-    f_in = encode_f(fj, "bfloat16") if store_bf16 else fj
-    f_pl, r_pl, v_pl = pstep(f_in, vj, u, s, prepare_pallas_statics(p))
-    if store_bf16:
-        f_pl = decode_f(f_pl)
-    X_, Y_, Z_ = p.interior
-    tol = 2e-3 if store_bf16 else 1e-5
-    d = np.abs(np.asarray(f_pl, np.float32)[:, :X_, :Y_, :Z_]
-               - np.asarray(f_ref)[:, :X_, :Y_, :Z_])
-    assert d.max() < tol, d.max()
-    dv = np.abs(np.asarray(v_pl)[:, :X_, :Y_, :Z_]
-                - np.asarray(v_ref)[:, :X_, :Y_, :Z_])
-    assert dv.max() < tol, dv.max()
-
-
-@pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
-def test_sharded_pallas_2d_matches_single(rng):
-    """The 2-D chunked kernel under shard_map x-slab decomposition (the
-    multi-chip path for 100M+-cell domains) must match the unsharded 2-D
-    kernel on interior cells."""
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-    from open_ludwig_tpu.ops.pallas_step import make_pallas_step_2d
-    from open_ludwig_tpu.solver_dense import _shard_map_pstep
-
-    n_dev = 4
-    if len(jax.devices()) < n_dev:
-        pytest.skip("needs 4 virtual devices")
-    X, Y, Z = 16, 16, 120
-    p = _patch((X, Y, Z), tau=0.55)
-    p.obstacle[6:9, 6:10, 50:56] = True
-    p.sponge[13:, :, :] = 0.4
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.01,
-              wall_model=True, sponge_blend=True, interpret=True,
-              store_bf16=True)
-    mesh = Mesh(np.array(jax.devices()[:n_dev]), axis_names=("x",))
-    st3d = prepare_pallas_statics(p)
-    f0 = (lat.W[:, None, None, None] * 0.03 * rng.standard_normal(
-        (27,) + p.padded)).astype(np.float32)  # g-space
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-
-    step1 = make_pallas_step_2d(p, chunk_dims=(2, 8), **kw)
-    fA, vA = jnp.asarray(f0, jnp.bfloat16), jnp.asarray(v0)
-    for t in range(2):
-        fA, rA, vA = step1(fA, vA, 0.02, t, st3d)
-
-    stepN = _shard_map_pstep(
-        make_pallas_step_2d(p, chunk_dims=(2, 8), shard_nx=n_dev, **kw),
-        p, mesh,
-    )
-    xsh = NamedSharding(mesh, P(None, "x"))
-    fB = jax.device_put(jnp.asarray(f0, jnp.bfloat16), xsh)
-    vB = jax.device_put(jnp.asarray(v0), xsh)
-    st3d_sh = dict(st3d)
-    for k in ("obstacle_u8", "sponge3d", "wall3d"):
-        st3d_sh[k] = jax.device_put(st3d[k], NamedSharding(mesh, P("x")))
-    for t in range(2):
-        fB, rB, vB = stepN(fB, vB, 0.02, t, st3d_sh)
-
-    X_, Y_, Z_ = p.interior
-    df = np.abs(np.asarray(fA, np.float32)[:, :X_, :Y_, :Z_]
-                - np.asarray(fB, np.float32)[:, :X_, :Y_, :Z_]).max()
-    dv = np.abs(np.asarray(vA)[:, :X_, :Y_, :Z_]
-                - np.asarray(vB)[:, :X_, :Y_, :Z_]).max()
-    assert df < 1e-6 and dv < 1e-6, (df, dv)
 
 
 def test_bouzidi_dense_matches_sparse(rng):
@@ -249,207 +112,7 @@ def test_bouzidi_dense_matches_sparse(rng):
     )
 
 
-@pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
-@pytest.mark.parametrize("store_bf16", [False, True])
-def test_sharded_pallas_step_matches_single(rng, store_bf16):
-    """Production multichip path: the fused Pallas kernel under shard_map
-    with ppermute halo exchange (solver_dense._shard_map_pstep) must match
-    the unsharded Pallas kernel on interior cells.  Padding cells are dead
-    values (obstacle bounce-back of wrapped-window junk) and legitimately
-    differ between chunkings."""
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-    from open_ludwig_tpu.solver_dense import _shard_map_pstep
-
-    n_dev = 4
-    if len(jax.devices()) < n_dev:
-        pytest.skip("needs 4 virtual devices")
-    X, Y, Z = 16, 8, 120
-    p = _patch((X, Y, Z), tau=0.55)
-    p.obstacle[6:9, 3:5, 50:56] = True
-    p.sponge[13:, :, :] = 0.4
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.01,
-              wall_model=True, sponge_blend=True, interpret=True,
-              store_bf16=store_bf16)
-    mesh = Mesh(np.array(jax.devices()[:n_dev]), axis_names=("x",))
-    st3d = prepare_pallas_statics(p)
-    f_dtype = jnp.bfloat16 if store_bf16 else jnp.float32
-    f0 = (lat.W[:, None, None, None] * (1 + 0.03 * rng.standard_normal(
-        (27,) + p.padded))).astype(np.float32)
-    if store_bf16:
-        f0 = f0 - lat.W[:, None, None, None].astype(np.float32)  # g-space
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-
-    step1 = make_pallas_step(p, **kw)
-    fA, rA, vA = jnp.asarray(f0, f_dtype), None, jnp.asarray(v0)
-    for t in range(2):
-        fA, rA, vA = step1(fA, vA, 0.02, t, st3d)
-
-    stepN = _shard_map_pstep(
-        make_pallas_step(p, shard_nx=n_dev, **kw), p, mesh
-    )
-    xsh = NamedSharding(mesh, P(None, "x"))
-    fB = jax.device_put(jnp.asarray(f0, f_dtype), xsh)
-    vB = jax.device_put(jnp.asarray(v0), xsh)
-    st3d_sh = dict(st3d)
-    for k in ("obstacle_u8", "sponge3d", "wall3d"):
-        st3d_sh[k] = jax.device_put(st3d[k], NamedSharding(mesh, P("x")))
-    for t in range(2):
-        fB, rB, vB = stepN(fB, vB, 0.02, t, st3d_sh)
-
-    X_, Y_, Z_ = p.interior
-    df = np.abs(np.asarray(fA, np.float32)[:, :X_, :Y_, :Z_]
-                - np.asarray(fB, np.float32)[:, :X_, :Y_, :Z_]).max()
-    dv = np.abs(np.asarray(vA)[:, :X_, :Y_, :Z_]
-                - np.asarray(vB)[:, :X_, :Y_, :Z_]).max()
-    assert df < 1e-6 and dv < 1e-6, (df, dv)
-
-
-@pytest.mark.parametrize("X", [8, 16])
-def test_pallas_interface_interpret(rng, X):
-    """Pallas kernel with interface ghost faces (fine-patch configuration).
-    X=16 exercises the multi-chunk grid (NCH=2): the per-chunk BlockSpec
-    windowing of the y/z ghost planes must deliver the right rows."""
-    from open_ludwig_tpu.ops.dense_step import dense_stream_collide as dsc
-
-    Y, Z = 8, 120
-    p = _patch((X, Y, Z), tau=0.53, lo=(10, 12, 14),
-               face_bc=[BC_INTERFACE] * 6, level_id=2)
-    p.obstacle[3:5, 3:5, 50:54] = True
-    f0 = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
-        (27,) + p.padded))).astype(np.float32)
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-    iface = {}
-    for fc in range(6):
-        ax = fc // 2
-        t = [a for a in range(3) if a != ax]
-        A, B = p.padded[t[0]], p.padded[t[1]]
-        iface[fc] = jnp.asarray(
-            (lat.W[:, None, None] * (1 + 0.03 * rng.standard_normal(
-                (27, A + 2, B + 2)))).astype(np.float32))
-    static_flat = {
-        "obstacle": jnp.asarray(p.obstacle.reshape(-1)),
-        "sponge": jnp.asarray(p.sponge.reshape(-1)),
-        "wall_dist": jnp.asarray(p.wall_dist.reshape(-1)),
-        "bouzidi": None,
-    }
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.0,
-              wall_model=False, sponge_blend=False)
-    fj, vj = jnp.asarray(f0), jnp.asarray(v0)
-    u, s = jnp.float32(0.04), jnp.int32(9)
-    f_ref, _, _ = dsc(fj, vj, u, s, static_flat, p, iface=iface, **kw)
-    pstep = make_pallas_step(p, interpret=True, **kw)
-    f_pl, _, _ = pstep(fj, vj, u, s, prepare_pallas_statics(p),
-                       prep_iface_pallas(iface, p))
-    X_, Y_, Z_ = p.interior
-    d = np.abs(np.asarray(f_pl)[:, :X_, :Y_, :Z_]
-               - np.asarray(f_ref)[:, :X_, :Y_, :Z_])
-    assert d.max() < 1e-5, d.max()
-
-
-def test_pallas_g_native_matches_dense(rng):
-    """bf16 g-storage kernel in g-NATIVE mode (collide_unrolled_v2 g_shifted:
-    weight shift folded into the moment constants, no per-direction
-    decode/encode) vs the XLA dense f-space path, with interface faces, wall
-    model, sponge and inlet noise all on."""
-    from open_ludwig_tpu.ops.storage import decode_f, encode_f
-
-    X, Y, Z = 16, 8, 120
-    p = _patch((X, Y, Z), tau=0.53, lo=(10, 12, 14),
-               face_bc=[BC_INTERFACE, BC_OUTLET, BC_INTERFACE, BC_MIRROR_Y,
-                        BC_INTERFACE, BC_INTERFACE], level_id=2)
-    p.obstacle[3:5, 3:5, 50:54] = True
-    p.sponge[12:, :, :] = 0.3
-    p.wall_dist[2, 3, 49] = 1.0
-    f0 = (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
-        (27,) + p.padded))).astype(np.float32)
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-    iface = {}
-    for fc in range(6):
-        if p.face_bc[fc] != BC_INTERFACE:
-            continue
-        ax = fc // 2
-        t = [a for a in range(3) if a != ax]
-        A, B = p.padded[t[0]], p.padded[t[1]]
-        iface[fc] = jnp.asarray(
-            (lat.W[:, None, None] * (1 + 0.03 * rng.standard_normal(
-                (27, A + 2, B + 2)))).astype(np.float32))
-    static_flat = {
-        "obstacle": jnp.asarray(p.obstacle.reshape(-1)),
-        "sponge": jnp.asarray(p.sponge.reshape(-1)),
-        "wall_dist": jnp.asarray(p.wall_dist.reshape(-1)),
-        "bouzidi": None,
-    }
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.02,
-              wall_model=True, sponge_blend=True)
-    fj, vj = jnp.asarray(f0), jnp.asarray(v0)
-    u, s = jnp.float32(0.04), jnp.int32(9)
-    f_ref, r_ref, _ = dense_stream_collide(fj, vj, u, s, static_flat, p, iface=iface, **kw)
-    pstep = make_pallas_step(p, interpret=True, store_bf16=True, **kw)
-    assert pstep.g_native
-    g_pl, r_pl, _ = pstep(
-        encode_f(fj, "bfloat16"), vj, u, s, prepare_pallas_statics(p),
-        prep_iface_pallas(iface, p, g_shifted=True))
-    assert g_pl.dtype == jnp.bfloat16
-    X_, Y_, Z_ = p.interior
-    f_pl = decode_f(g_pl)
-    d = np.abs(np.asarray(f_pl)[:, :X_, :Y_, :Z_]
-               - np.asarray(f_ref)[:, :X_, :Y_, :Z_])
-    # bf16 storage quantizes inputs and outputs; deviations are O(u) ~ 0.05
-    # so the tolerance is the bf16 ulp of the deviation
-    assert d.max() < 2e-3, d.max()
-    dr = np.abs(np.asarray(r_pl) - np.asarray(r_ref))[:X_, :Y_, :Z_]
-    assert dr.max() < 2e-3, dr.max()
-
-
-def test_bouzidi_pallas_matches_dense(rng):
-    """make_bouzidi_pallas (in-place single-dispatch kernel with rotating
-    row DMA) vs apply_bouzidi_dense, both dtypes."""
-    import jax.numpy as jnp
-
-    from open_ludwig_tpu.ops.pallas_step import make_bouzidi_pallas
-    from open_ludwig_tpu.ops.storage import decode_f, encode_f
-
-    X, Y, Z = 16, 16, 120
-    nc = 60
-    cells = np.unique(
-        np.stack([
-            rng.integers(4, 12, nc), rng.integers(4, 12, nc),
-            rng.integers(40, 80, nc),
-        ], 1), axis=0,
-    ).astype(np.int32)
-    q = np.zeros((len(cells), 27), np.float16)
-    mask = rng.random((len(cells), 27)) < 0.3
-    q[mask] = rng.uniform(0.05, 1.0, mask.sum()).astype(np.float16)
-    q[:, 13] = 0
-    bz = BouzidiData(cells[:, 0], cells[:, 1], cells[:, 2], q,
-                     np.full((len(cells), 27), -1, np.int32))
-    p = _patch((X, Y, Z))
-    p.bouzidi = bz
-    plan = build_bouzidi_dense_plan(p, 0.001)
-    f = jnp.asarray(
-        (lat.W[:, None, None, None] * (1 + 0.05 * rng.standard_normal(
-            (27,) + p.padded))).astype(np.float32))
-    ref = apply_bouzidi_dense(f, plan)
-    # f32 storage (the dense plan keeps f16 coefficients, the kernel f32 —
-    # tolerance is the f16 ulp, as in test_bouzidi_dense_matches_sparse)
-    ap = make_bouzidi_pallas(plan, (27,) + p.padded, jnp.float32,
-                             interpret=True)
-    got = ap(f)
-    assert np.allclose(np.asarray(got), np.asarray(ref), atol=2e-3, rtol=2e-3)
-    # untouched slots are bit-identical
-    changed = np.asarray(ref) != np.asarray(f)
-    assert np.array_equal(np.asarray(got)[~changed], np.asarray(f)[~changed])
-    # bf16 g-storage: correction is form-invariant in g-space
-    g = encode_f(f, "bfloat16")
-    apb = make_bouzidi_pallas(plan, (27,) + p.padded, jnp.bfloat16,
-                              interpret=True)
-    got_b = decode_f(apb(g))
-    d = np.abs(np.asarray(got_b) - np.asarray(ref))
-    assert d.max() < 5e-3, d.max()
-
-
-@pytest.mark.slow  # 360s; the driver runs dryrun_multichip every round
+@pytest.mark.slow  # 360 s on the CPU
 def test_production_multichip_dryrun():
     """The production multi-level sharded step (parallel.patch_shard via
     __graft_entry__.dryrun_multichip) on the virtual 8-device CPU mesh:
@@ -464,138 +127,3 @@ def test_production_multichip_dryrun():
 
     g.dryrun_multichip(8)
 
-
-@pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
-def test_pair_layout_coarse_matches_xla(tmp_path):
-    """The production multi-level coarse step with pair-layout ghost planes
-    (Pallas interpret) must match the XLA dense path on interior cells —
-    guards the einsum-pair BlockSpec index_map plumbing end to end."""
-    import jax.numpy as jnp
-
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.scaling import compute_domain_params
-    from open_ludwig_tpu import solver_dense as sd
-
-    d = str(tmp_path)
-    make_case_sphere(d, "1M", surface_resolution=12, num_levels=2, steps=4,
-                     ramp_steps=2, output_freq=100, diag_freq=100,
-                     wake_enabled=False, boundary_method="bounce_back")
-    cfg = load_case_config(d)
-    tri = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
-    params = compute_domain_params(cfg, tri.min_bounds, tri.max_bounds)
-    patches = build_patches(cfg, tri, params)
-    statics = sd.build_patch_statics(cfg, patches)
-    s0 = [sd.init_patch_state(p) for p in patches]
-    arrs = sd.statics_arg_arrays(statics)
-    csP = sd.make_coarse_step_dense(cfg, params, patches, statics,
-                                    use_pallas=True)
-    csX = sd.make_coarse_step_dense(cfg, params, patches, statics,
-                                    use_pallas=False)
-    sP = [dict(x) for x in s0]
-    sX = [dict(x) for x in s0]
-    jP = jax.jit(lambda s, t, a: csP(list(s), t, a))
-    jX = jax.jit(lambda s, t, a: csX(list(s), t, a))
-    for t in range(1, 3):
-        sP = jP(sP, jnp.int32(t), arrs)
-        sX = jX(sX, jnp.int32(t), arrs)
-    for li, p in enumerate(patches):
-        X, Y, Z = p.interior
-        df = np.abs(
-            np.asarray(sP[li]["f"], np.float32)[:, :X, :Y, :Z]
-            - np.asarray(sX[li]["f"], np.float32)[:, :X, :Y, :Z]
-        ).max()
-        assert df < 2e-5, (li, df)
-
-@pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
-def test_bouzidi_folded_coarse_matches_xla(tmp_path):
-    """The production coarse step with the Bouzidi correction FOLDED into
-    the step kernel's delayed-flush output ring must match the XLA dense
-    path (separate sub-box correction) — guards the in-kernel epilogue's
-    cross-chunk neighbor plumbing and the padded-coefficient jit argument."""
-    import jax.numpy as jnp
-
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.scaling import compute_domain_params
-    from open_ludwig_tpu import solver_dense as sd
-
-    d = str(tmp_path)
-    make_case_sphere(d, "1M", surface_resolution=12, num_levels=2, steps=4,
-                     ramp_steps=2, output_freq=100, diag_freq=100,
-                     wake_enabled=False, boundary_method="bouzidi")
-    cfg = load_case_config(d)
-    tri = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
-    params = compute_domain_params(cfg, tri.min_bounds, tri.max_bounds)
-    patches = build_patches(cfg, tri, params)
-    statics = sd.build_patch_statics(cfg, patches)
-    s0 = [sd.init_patch_state(p) for p in patches]
-    csP = sd.make_coarse_step_dense(cfg, params, patches, statics,
-                                    use_pallas=True, _bz_fold=True)
-    csX = sd.make_coarse_step_dense(cfg, params, patches, statics,
-                                    use_pallas=False)
-    # the fold-in must actually engage on the Bouzidi level (else this test
-    # silently degrades to the standalone-kernel comparison)
-    assert any(csP.bz_folded), csP.bz_folded
-    # statics_arg_arrays AFTER make_coarse_step_dense (it adds bz_S_pad)
-    arrs = sd.statics_arg_arrays(statics)
-    assert any("bz_S_pad" in a for a in arrs)
-    sP = [dict(x) for x in s0]
-    sX = [dict(x) for x in s0]
-    jP = jax.jit(lambda s, t, a: csP(list(s), t, a))
-    jX = jax.jit(lambda s, t, a: csX(list(s), t, a))
-    for t in range(1, 3):
-        sP = jP(sP, jnp.int32(t), arrs)
-        sX = jX(sX, jnp.int32(t), arrs)
-    for li, p in enumerate(patches):
-        X, Y, Z = p.interior
-        df = np.abs(
-            np.asarray(sP[li]["f"], np.float32)[:, :X, :Y, :Z]
-            - np.asarray(sX[li]["f"], np.float32)[:, :X, :Y, :Z]
-        ).max()
-        assert df < 2e-5, (li, df)
-
-
-def test_sharded_pallas_step_matches_single_smoke(rng):
-    """Fast-tier multichip parity guard (ADVICE r3): 2 shards, 1 step, bf16
-    — the 4-shard/2-step/both-dtype version is slow-marked."""
-    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-
-    from open_ludwig_tpu.solver_dense import _shard_map_pstep
-
-    n_dev = 2
-    if len(jax.devices()) < n_dev:
-        pytest.skip("needs 2 virtual devices")
-    X, Y, Z = 8, 8, 120
-    p = _patch((X, Y, Z), tau=0.55)
-    p.obstacle[3:5, 3:5, 50:56] = True
-    kw = dict(c_wale=0.5, nu_sgs_background=5e-4, inlet_turbulence=0.01,
-              wall_model=True, sponge_blend=True, interpret=True,
-              store_bf16=True)
-    mesh = Mesh(np.array(jax.devices()[:n_dev]), axis_names=("x",))
-    st3d = prepare_pallas_statics(p)
-    f0 = (lat.W[:, None, None, None] * 0.03 * rng.standard_normal(
-        (27,) + p.padded)).astype(np.float32)  # g-space
-    v0 = (0.02 * rng.standard_normal((3,) + p.padded)).astype(np.float32)
-
-    step1 = make_pallas_step(p, **kw)
-    fA, rA, vA = step1(jnp.asarray(f0, jnp.bfloat16), jnp.asarray(v0),
-                       0.02, 0, st3d)
-
-    stepN = _shard_map_pstep(
-        make_pallas_step(p, shard_nx=n_dev, **kw), p, mesh
-    )
-    xsh = NamedSharding(mesh, P(None, "x"))
-    st3d_sh = dict(st3d)
-    for k in ("obstacle_u8", "sponge3d", "wall3d"):
-        st3d_sh[k] = jax.device_put(st3d[k], NamedSharding(mesh, P("x")))
-    fB, rB, vB = stepN(
-        jax.device_put(jnp.asarray(f0, jnp.bfloat16), xsh),
-        jax.device_put(jnp.asarray(v0), xsh), 0.02, 0, st3d_sh,
-    )
-    X_, Y_, Z_ = p.interior
-    df = np.abs(np.asarray(fA, np.float32)[:, :X_, :Y_, :Z_]
-                - np.asarray(fB, np.float32)[:, :X_, :Y_, :Z_]).max()
-    assert df < 1e-6, df

@@ -6,16 +6,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import (
+from open_ludwig import lattice as lat
+from open_ludwig.cases import make_case_sphere
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import (
     BC_INLET, BC_MIRROR_Y, BC_MIRROR_Z, BC_OUTLET, PatchLevel, build_patches,
 )
-from open_ludwig_tpu.geometry import load_mesh, make_icosphere, save_binary_stl
-from open_ludwig_tpu.ops.dense_step import dense_stream_collide
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig.geometry import load_mesh, make_icosphere, save_binary_stl
+from open_ludwig.ops.dense_step import dense_stream_collide
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver_dense import (
     build_patch_statics,
     init_patch_state,
     make_coarse_step_dense,
@@ -78,7 +78,7 @@ def test_multilevel_quiescent_consistency(tmp_path):
     patches = build_patches(cfg, mesh, params)
     statics = build_patch_statics(cfg, patches)
     states = [init_patch_state(p) for p in patches]
-    cs = make_coarse_step_dense(cfg, params, patches, statics, use_pallas=False)
+    cs = make_coarse_step_dense(cfg, params, patches, statics)
     for t in range(1, 4):
         states = cs(states, jnp.int32(t))
     for st, p in zip(states, patches):
@@ -91,7 +91,7 @@ def test_multilevel_quiescent_consistency(tmp_path):
 def test_symmetric_force_doubling_config(tmp_path):
     """symmetric_analysis halves the reference area and places the mesh at
     y=0 (reference: config_loader.jl:129, physics_scaling.jl:130)."""
-    from open_ludwig_tpu.config import CaseConfig
+    from open_ludwig.config import CaseConfig
 
     verts = make_icosphere(0.5, center=(0.0, 0.26, 0.0), subdiv=2)
     save_binary_stl(str(tmp_path / "s.stl"), verts)

@@ -9,14 +9,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.ops import storage
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig import lattice as lat
+from open_ludwig.cases import make_case_sphere
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.geometry import load_mesh
+from open_ludwig.ops import storage
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver_dense import (
     build_patch_statics,
     init_patch_state,
     make_coarse_step_dense,
@@ -73,8 +73,7 @@ def test_bf16_matches_f32_multilevel(sphere_case):
     for prec in ("float32", "bfloat16"):
         c = cfg.with_overrides(precision=prec)
         states = [init_patch_state(p, prec) for p in levels]
-        step = make_coarse_step_dense(c, params, levels, statics,
-                                      use_pallas=False)
+        step = make_coarse_step_dense(c, params, levels, statics)
         for t in range(1, 9):
             states = step(states, jnp.int32(t))
         outs[prec] = states
@@ -88,13 +87,12 @@ def test_bf16_matches_f32_multilevel(sphere_case):
 
 @pytest.mark.slow  # compile-heavy on CPU; full suite still runs it
 def test_bf16_checkpoint_roundtrip(sphere_case, tmp_path):
-    from open_ludwig_tpu import checkpoint as ckpt
+    from open_ludwig import checkpoint as ckpt
 
     cfg, params, levels, statics = sphere_case
     states = [init_patch_state(p, "bfloat16") for p in levels]
     step = make_coarse_step_dense(
         cfg.with_overrides(precision="bfloat16"), params, levels, statics,
-        use_pallas=False,
     )
     states = step(states, jnp.int32(1))
     path = ckpt.save_checkpoint(str(tmp_path), 1, states)

@@ -15,11 +15,11 @@ import shutil
 import numpy as np
 import pytest
 
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.runner import solve_case
-from open_ludwig_tpu.scaling import compute_domain_params
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.geometry import load_mesh
+from open_ludwig.runner import solve_case
+from open_ludwig.scaling import compute_domain_params
 
 REF_CASES = "/root/reference/CASES"
 ALL_CASES = [

@@ -8,9 +8,9 @@ import xml.etree.ElementTree as ET
 import numpy as np
 import pytest
 
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.runner import solve_case
+from open_ludwig.cases import make_case_sphere
+from open_ludwig.config import load_case_config
+from open_ludwig.runner import solve_case
 
 
 @pytest.fixture(scope="module")
@@ -74,7 +74,7 @@ def test_checkpoint_resume(tiny_case):
 def test_force_output_freq_cadence(tmp_path):
     """forces.csv cadence independent of diagnostics (reference:
     config_loader.jl:192 FORCE_OUTPUT_FREQ fallback semantics)."""
-    import yaml
+    from open_ludwig import yamlio
 
     d = str(tmp_path)
     make_case_sphere(
@@ -82,9 +82,9 @@ def test_force_output_freq_cadence(tmp_path):
         output_freq=100, diag_freq=10, wake_enabled=False,
         boundary_method="bounce_back", wall_model=False,
     )
-    cfgd = yaml.safe_load(open(os.path.join(d, "config.yaml")))
+    cfgd = yamlio.load(os.path.join(d, "config.yaml"))
     cfgd["advanced"].setdefault("forces", {})["output_freq"] = 5
-    yaml.safe_dump(cfgd, open(os.path.join(d, "config.yaml"), "w"))
+    yamlio.dump(cfgd, os.path.join(d, "config.yaml"))
     cfg = load_case_config(d)
     assert cfg.effective_force_output_freq == 5
     solve_case(cfg)
@@ -115,9 +115,9 @@ def test_solve_case_blocks_layout(tiny_case):
 
 
 def test_batch_runner(tmp_path):
-    import yaml
+    from open_ludwig import yamlio
 
-    from open_ludwig_tpu.runner import run_all_cases
+    from open_ludwig.runner import run_all_cases
 
     root = tmp_path / "CASES"
     make_case_sphere(
@@ -128,7 +128,7 @@ def test_batch_runner(tmp_path):
     (root / "broken").mkdir(parents=True)
     (root / "broken" / "config.yaml").write_text("basic: {}\n")
     batch = tmp_path / "cases_to_run.yaml"
-    batch.write_text(yaml.safe_dump({"case_folders": ["broken", "good"]}))
+    batch.write_text(yamlio.dumps({"case_folders": ["broken", "good"]}))
     # the broken case must not kill the batch (reference: main.jl:261-267)
     run_all_cases(str(root), str(batch))
     assert (root / "good" / "RESULTS" / "convergence.csv").exists()
@@ -137,9 +137,9 @@ def test_batch_runner(tmp_path):
 def test_symmetric_half_model_e2e(tmp_path):
     """Half-model with y=0 symmetry plane end-to-end: mirror BC at y-min,
     halved reference area, doubled Fx/Fz (reference: forces/surface.jl:517)."""
-    import yaml
+    from open_ludwig import yamlio
 
-    from open_ludwig_tpu.cases import make_case_sphere
+    from open_ludwig.cases import make_case_sphere
 
     d = str(tmp_path)
     make_case_sphere(
@@ -147,9 +147,9 @@ def test_symmetric_half_model_e2e(tmp_path):
         output_freq=100, diag_freq=100, wake_enabled=False,
         boundary_method="bounce_back", wall_model=False,
     )
-    cfgd = yaml.safe_load(open(os.path.join(d, "config.yaml")))
+    cfgd = yamlio.load(os.path.join(d, "config.yaml"))
     cfgd["advanced"]["refinement"]["symmetric_analysis"] = True
-    yaml.safe_dump(cfgd, open(os.path.join(d, "config.yaml"), "w"))
+    yamlio.dump(cfgd, os.path.join(d, "config.yaml"))
     cfg = load_case_config(d)
     assert cfg.symmetric_analysis
     res = solve_case(cfg)
@@ -186,10 +186,10 @@ def test_three_level_production_e2e(tmp_path):
 def test_num_levels_auto(tmp_path, mode):
     """num_levels: 0 and auto_levels pick the domain-capped level count
     (reference: physics_scaling.jl compute_max_levels_for_domain)."""
-    import yaml
+    from open_ludwig import yamlio
 
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.scaling import compute_domain_params
+    from open_ludwig.geometry import load_mesh
+    from open_ludwig.scaling import compute_domain_params
 
     d = str(tmp_path)
     make_case_sphere(
@@ -198,10 +198,10 @@ def test_num_levels_auto(tmp_path, mode):
         boundary_method="bounce_back", wall_model=False,
     )
     if mode == "auto":
-        cfgd = yaml.safe_load(open(os.path.join(d, "config.yaml")))
+        cfgd = yamlio.load(os.path.join(d, "config.yaml"))
         cfgd["advanced"].setdefault("high_re", {})["auto_levels"] = True
         cfgd["advanced"]["high_re"]["max_levels"] = 2
-        yaml.safe_dump(cfgd, open(os.path.join(d, "config.yaml"), "w"))
+        yamlio.dump(cfgd, os.path.join(d, "config.yaml"))
     cfg = load_case_config(d)
     assert cfg.num_levels == 0
     mesh = load_mesh(cfg.stl_path, scale=cfg.stl_scale)
@@ -218,7 +218,7 @@ def test_stability_abort(tmp_path):
     the last state) instead of burning the remaining wall-clock; the
     reference only ever warns (its check_stability is dead code,
     reference: diagnostics.jl:99-125)."""
-    import yaml
+    from open_ludwig import yamlio
 
     d = str(tmp_path)
     make_case_sphere(
@@ -226,11 +226,11 @@ def test_stability_abort(tmp_path):
         output_freq=1000, diag_freq=5, wake_enabled=False,
         boundary_method="bounce_back", wall_model=False,
     )
-    cfgd = yaml.safe_load(open(os.path.join(d, "config.yaml")))
+    cfgd = yamlio.load(os.path.join(d, "config.yaml"))
     # deliberately unstable: Ma ~ 0.7 lattice velocity with no ramp
     cfgd["advanced"]["numerics"]["u_lattice"] = 0.4
     cfgd["advanced"].setdefault("diagnostics", {})["stability_action"] = "abort"
-    yaml.safe_dump(cfgd, open(os.path.join(d, "config.yaml"), "w"))
+    yamlio.dump(cfgd, os.path.join(d, "config.yaml"))
     cfg = load_case_config(d)
     assert cfg.stability_action == "abort"
     with pytest.raises(RuntimeError, match="diverged"):
@@ -241,7 +241,7 @@ def test_stability_abort(tmp_path):
 
 
 def test_wing_case_smoke(tmp_path):
-    from open_ludwig_tpu.cases import make_case_wing
+    from open_ludwig.cases import make_case_wing
 
     d = str(tmp_path)
     make_case_wing(

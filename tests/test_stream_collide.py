@@ -4,13 +4,13 @@ invariants (equilibrium fixed point, mass behavior)."""
 import numpy as np
 import pytest
 
-from open_ludwig_tpu import lattice as lat
-from open_ludwig_tpu.core.plan import build_stream_plan
-from open_ludwig_tpu.core.state import build_level_static, init_level_state
-from open_ludwig_tpu.config import CaseConfig
-from open_ludwig_tpu.domain.builder import LevelGeometry, _dense_to_blocks
-from open_ludwig_tpu.domain import topology as topo
-from open_ludwig_tpu.ops.stream_collide import stream_collide
+from open_ludwig import lattice as lat
+from open_ludwig.core.plan import build_stream_plan
+from open_ludwig.core.state import build_level_static, init_level_state
+from open_ludwig.config import CaseConfig
+from open_ludwig.domain.builder import LevelGeometry, _dense_to_blocks
+from open_ludwig.domain import topology as topo
+from open_ludwig.ops.stream_collide import stream_collide
 
 from reference_impl import naive_step
 

@@ -21,20 +21,20 @@ import pytest
 
 import jax
 
-from open_ludwig_tpu.cases import make_case_wing
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.diagnostics import control_volume_force
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.ops import storage
-from open_ludwig_tpu.ops.forces import (
+from open_ludwig.cases import make_case_wing
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.diagnostics import control_volume_force
+from open_ludwig.geometry import load_mesh
+from open_ludwig.ops import storage
+from open_ludwig.ops.forces import (
     compute_aerodynamics,
     compute_aerodynamics_mem,
     make_force_context_dense,
     make_mem_context,
 )
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver_dense import (
     build_patch_statics,
     init_patch_state,
     make_batch_runner_dense,

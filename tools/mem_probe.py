@@ -2,22 +2,22 @@
 control-volume balance on a sphere flow — the MEM cross-check the wing CV
 study motivated (VALIDATION.md)."""
 import sys, os, shutil, tempfile
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import numpy as np
 import jax
-from open_ludwig_tpu.jax_setup import setup_jax_cache
+from open_ludwig.jax_setup import setup_jax_cache
 setup_jax_cache()
-from open_ludwig_tpu.cases import make_case_sphere
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig.cases import make_case_sphere
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.geometry import load_mesh
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver_dense import (
     build_patch_statics, init_patch_state, make_batch_runner_dense)
-from open_ludwig_tpu.ops.forces import (
+from open_ludwig.ops.forces import (
     compute_aerodynamics, compute_aerodynamics_mem,
     make_force_context_dense, make_mem_context)
-from open_ludwig_tpu.ops import storage
+from open_ludwig.ops import storage
 
 res = int(sys.argv[1]) if len(sys.argv) > 1 else 25
 steps = int(sys.argv[2]) if len(sys.argv) > 2 else 6000

@@ -27,12 +27,14 @@ def analyze(trace_dir):
     counts = collections.Counter()
     total = 0.0
     for plane in pd.planes:
-        if "TPU" not in plane.name and "tpu" not in plane.name.lower():
+        # device planes are named "/device:GPU:<n>"; the rest are host threads
+        if not plane.name.startswith("/device:GPU"):
             continue
         for line in plane.lines:
             lname = line.name.lower()
-            # XLA op lines carry per-op events; skip step/annotation lines
-            if "step" in lname:
+            # kernel lines (one per stream) carry the per-kernel events; skip
+            # the step and XLA-module annotation lines, which overlap them
+            if "step" in lname or "module" in lname:
                 continue
             for ev in line.events:
                 dur = ev.duration_ns / 1e3  # us
@@ -62,16 +64,16 @@ def main():
 
     import jax
 
-    from open_ludwig_tpu.jax_setup import setup_jax_cache
+    from open_ludwig.jax_setup import setup_jax_cache
 
     setup_jax_cache()
 
-    from open_ludwig_tpu.cases import make_case_sphere
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.core.patch import build_patches
-    from open_ludwig_tpu.geometry import load_mesh
-    from open_ludwig_tpu.scaling import compute_domain_params
-    from open_ludwig_tpu.solver_dense import (
+    from open_ludwig.cases import make_case_sphere
+    from open_ludwig.config import load_case_config
+    from open_ludwig.core.patch import build_patches
+    from open_ludwig.geometry import load_mesh
+    from open_ludwig.scaling import compute_domain_params
+    from open_ludwig.solver_dense import (
         build_patch_statics,
         init_patch_state,
         make_batch_runner_dense,

@@ -76,8 +76,8 @@ def window_stats(forces_csv: str, last_step: int, window: int = WINDOW):
 
 
 def run_regime(regime: str, tag: str = "", **extra):
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.runner import solve_case
+    from open_ludwig.config import load_case_config
+    from open_ludwig.runner import solve_case
 
     out = f"/tmp/val_{regime}{tag}"
     shutil.rmtree(out, ignore_errors=True)

@@ -28,8 +28,8 @@ CASES = os.path.join(os.path.dirname(__file__), "..", "CASES")
 def run_case(name: str, res: int, steps: int, window: int):
     import yaml
 
-    from open_ludwig_tpu.config import load_case_config
-    from open_ludwig_tpu.runner import solve_case
+    from open_ludwig.config import load_case_config
+    from open_ludwig.runner import solve_case
 
     src = os.path.join(CASES, name)
     out = f"/tmp/valwing_{name}"

@@ -1,28 +1,28 @@
 """Diagnostic: wing forces via surface-stress mapping vs an independent
 control-volume momentum balance on the finest level."""
 import sys, os, shutil, yaml
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), ".."))
 import numpy as np
 import jax, jax.numpy as jnp
-from open_ludwig_tpu.jax_setup import setup_jax_cache
+from open_ludwig.jax_setup import setup_jax_cache
 setup_jax_cache()
-from open_ludwig_tpu.config import load_case_config
-from open_ludwig_tpu.core.patch import build_patches
-from open_ludwig_tpu.geometry import load_mesh
-from open_ludwig_tpu.scaling import compute_domain_params
-from open_ludwig_tpu.solver_dense import (
+from open_ludwig.config import load_case_config
+from open_ludwig.core.patch import build_patches
+from open_ludwig.geometry import load_mesh
+from open_ludwig.scaling import compute_domain_params
+from open_ludwig.solver_dense import (
     build_patch_statics, init_patch_state, make_batch_runner_dense)
-from open_ludwig_tpu.ops.forces import (
+from open_ludwig.ops.forces import (
     compute_aerodynamics, compute_aerodynamics_mem, make_force_context_dense,
     make_mem_context)
-from open_ludwig_tpu.ops import storage
+from open_ludwig.ops import storage
 
 name = sys.argv[1] if len(sys.argv) > 1 else "wing_5deg"
 res = int(sys.argv[2]) if len(sys.argv) > 2 else 48
 steps = int(sys.argv[3]) if len(sys.argv) > 3 else 12000
 U = float(sys.argv[4]) if len(sys.argv) > 4 else 0.15
 
-src = os.path.join("/root/repo/CASES", name)
+src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "CASES", name)
 out = f"/tmp/cv_{name}"
 shutil.rmtree(out, ignore_errors=True); os.makedirs(out)
 shutil.copy(os.path.join(src, "wing.stl"), os.path.join(out, "wing.stl"))
@@ -66,7 +66,7 @@ else:
     print("[mom-ex ] no obstacle cells on the finest level")
 
 # control-volume momentum balance on the finest level
-from open_ludwig_tpu.diagnostics import control_volume_force
+from open_ludwig.diagnostics import control_volume_force
 
 print("vel_scale", params.velocity_scale, "dx_fine",
       params.dx_levels[patches[-1].level_id - 1])
